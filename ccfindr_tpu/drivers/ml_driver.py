@@ -1,14 +1,14 @@
 """Maximum-likelihood factorization driver.
 
-TPU-native equivalent of reference factorize (R/factorize.R:139-276):
+JAX equivalent of reference factorize (R/factorize.R:139-276):
 rank sweep x nsmpl randomized replicates x nrun restarts.  Redesigns:
 
 * Restarts — and, with ``batch_ranks`` (default auto), the whole
   rank sweep — run as ONE vmapped device loop with per-instance rank
   masks, mirroring the VB driver's batching.
 * With a ``jax.sharding.Mesh``, X/H shard over the 'cells' axis and
-  the fused Pallas ML kernels run per shard under shard_map with
-  explicit psums (parallel.sharded.make_ml_sharded).
+  the fused X-pass GPU kernel's ML phases run per shard under
+  shard_map with explicit psums (parallel.sharded.make_ml_sharded).
 * Consensus statistics stream through
   ops.consensus.ConsensusAccumulator — exact dispersion without ever
   materializing the m(m-1)/2 connectivity vector the reference
@@ -137,26 +137,6 @@ def _chunked_ml(call, w0, h0, nb, m_arr, itmax, every, ckpt_file,
     return g
 
 
-def _shuffle_sparse_columns(csr, rng):
-    """Sparse analog of the reference's per-column shuffle
-    (R/factorize.R:172-173): each column's nonzeros move to a uniform
-    random subset of rows (shuffling a column with its zeros included
-    is exactly that), preserving sparsity end to end."""
-    import scipy.sparse as sp
-
-    csc = sp.csc_matrix(csr)
-    n, m = csc.shape
-    rows = np.empty_like(csc.indices)
-    for j in range(m):
-        j0, j1 = csc.indptr[j], csc.indptr[j + 1]
-        k = j1 - j0
-        if k:
-            rows[j0:j1] = rng.permutation(n)[:k]
-    out = sp.csc_matrix((csc.data, rows, csc.indptr), shape=(n, m))
-    out.sum_duplicates()
-    return sp.csr_matrix(out)
-
-
 def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
               verbose=2, Itmax=10000, ncnn_step=40,
               criterion="likelihood", linkage="average", Tol=1e-5,
@@ -180,12 +160,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
 
     * ``'dense'``       — eager XLA loop (parity oracle)
     * ``'dense_fused'`` — XLA, deferred-likelihood 2-passes-over-X loop
-    * ``'pallas'``      — fused single-pass H/W Pallas kernels
+    * ``'pallas'``      — the same loop over the fused X-pass GPU
+      kernel's H and W phases (ops.pallas.xpass).  GPU only.
     * ``'sparse'``      — nonzero-only phases, no densification
-      (``sparse_layout``: 'tile' — the 'auto' default, Pallas
-      tile-sparse kernel, single-device AND cell-sharded mesh, with
-      ``randomize`` support via a sparse column shuffle; 'ell' — dual
-      gather-only hybrid ELL, single-device only)
+      (``sparse_layout``: 'ell', the 'auto' default — dual
+      gather-only hybrid ELL, single device; no ``randomize``)
 
     ``checkpoint_every=K`` (with ``checkpoint_dir``) checkpoints
     MID-RUN every K sweeps, exactly as vb_factorize: the device loop
@@ -255,15 +234,14 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             raise ValueError("Input matrix contains empty rows")
         if (np.asarray(mat0.sum(axis=0)).ravel() == 0).any():
             raise ValueError("Input matrix contains empty columns")
-        if sparse_layout not in ("auto", "tile", "ell"):
+        if sparse_layout not in ("auto", "ell"):
             raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
-        if sparse_layout == "ell":
-            if randomize:
-                raise ValueError("randomize with backend='sparse' "
-                                 "needs sparse_layout='tile'")
-            if mesh is not None:
-                raise ValueError("the ELL ML layout is single-device; "
-                                 "use sparse_layout='tile' with a mesh")
+        if randomize:
+            raise ValueError("randomize is not supported with "
+                             "backend='sparse'; use a dense backend")
+        if mesh is not None:
+            raise ValueError("the sparse ML layout is single-device; "
+                             "use a dense backend with a mesh")
     else:
         mat0 = obj.counts_dense(dtype=np.dtype(dtype))
         n, m = mat0.shape
@@ -299,7 +277,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     pd_ = float(gamma_a) / float(gamma_b) if prior else 0.0
 
     # mesh: pad the cell axis to the 'cells' axis size with zero
-    # columns (same eps-level effect as the Pallas tile padding; the
+    # columns (same eps-level effect as the X-pass kernel's tile padding; the
     # likelihood normalizes by the true (n, m) via nm_true)
     m_pad = m
     if mesh is not None and "cells" in mesh.axis_names:
@@ -343,17 +321,10 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             return x, w0, h0
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from ..ops.tile import TileCounts
-
         axes = mesh.axis_names
         runs = "runs" if "runs" in axes else None
         cells = "cells" if "cells" in axes else None
-        if isinstance(x, TileCounts):
-            x = jax.tree.map(
-                lambda a: jax.device_put(
-                    a, NamedSharding(mesh, P(cells))), x)
-        else:
-            x = jax.device_put(x, NamedSharding(mesh, P(None, cells)))
+        x = jax.device_put(x, NamedSharding(mesh, P(None, cells)))
         w0 = jax.device_put(w0, NamedSharding(mesh, P(runs, None, None)))
         h0 = jax.device_put(h0, NamedSharding(mesh, P(runs, None, cells)))
         return x, w0, h0
@@ -362,22 +333,9 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         run_kwargs = dict(pn=jnp.asarray(pn, dtype),
                           pd=jnp.asarray(pd_, dtype))
         if backend == "sparse":
-            if sparse_layout == "ell":
-                from ..ops import ell as ek
-                x = ek.from_scipy_ell(mat, dtype=dtype)
-                fh, fw = ek.make_ell_ml_backend()
-            elif mesh is not None and "cells" in mesh.axis_names:
-                from ..ops import tile as tk
-                from ..parallel.sharded import make_tile_ml_sharded
-                x = tk.from_scipy_tile_sharded(mat,
-                                               mesh.shape["cells"],
-                                               m_pad=m_pad,
-                                               dtype=dtype)
-                fh, fw = make_tile_ml_sharded(mesh)
-            else:
-                from ..ops import tile as tk
-                x = tk.from_scipy_tile(mat, dtype=dtype)
-                fh, fw = tk.make_tile_ml_backend()
+            from ..ops import ell as ek
+            x = ek.from_scipy_ell(mat, dtype=dtype)
+            fh, fw = ek.make_ell_ml_backend()
             run_kwargs.update(fused_h=fh, fused_w=fw, nm_true=(n, m))
             return x, run_kwargs
         x = jnp.asarray(mat, dev_dtype)
@@ -388,13 +346,13 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                               fused_w=ml_ops.ml_w_dense,
                               nm_true=(n, m))
         elif backend == "pallas":
-            from ..ops.pallas import ml_kernels as mlk
+            from ..ops.pallas import xpass as xk
             if mesh is not None and "cells" in mesh.axis_names:
                 from ..parallel.sharded import make_ml_sharded
                 fh, fw = make_ml_sharded(mesh)
             else:
-                fh, fw = mlk.make_ml_backend()
-                x = mlk.pad_matrix(x)
+                fh, fw = xk.make_ml_backend()
+                x = xk.pad_matrix(x)
             run_kwargs.update(fused_h=fh, fused_w=fw, nm_true=(n, m))
         elif backend == "dense":
             if m_pad != m:
@@ -425,7 +383,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             coph = cons.cophenet(conav, m, method=linkage)
         else:
             # subsampled estimator (exact on each random cell subset)
-            # instead of the round-2 NaN; the reference computes the
+            # instead of NaN; the reference computes the
             # full m x m consensus unconditionally, R/factorize.R:69-78
             conav = None
             coph, coph_se = cons.cophenet_subsampled(
@@ -458,8 +416,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
 
     for ismpl in range(nsmpl):
         # work partition: single-process owns everything; multi-host
-        # partitions at RESTART granularity (round 5, VERDICT r4
-        # item 3) — the (sample, rank, run) grid round-robins across
+        # partitions at RESTART granularity — the (sample, rank, run) grid round-robins across
         # processes, so a restart-heavy consensus run (the reference
         # default nrun=20, R/factorize.R:139) with few (sample, rank)
         # items no longer leaves hosts idle.  The consensus needs
@@ -506,12 +463,9 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             # rebuild sample ismpl's shuffled matrix identically
             rng_i = np.random.default_rng(
                 np.random.SeedSequence([seed, 104729 + ismpl]))
-            if backend == "sparse":
-                mat = _shuffle_sparse_columns(mat0, rng_i)
-            else:
-                mat = np.empty_like(mat0)
-                for j in range(m):
-                    mat[:, j] = rng_i.permutation(mat0[:, j])
+            mat = np.empty_like(mat0)
+            for j in range(m):
+                mat[:, j] = rng_i.permutation(mat0[:, j])
         else:
             mat = mat0
 
@@ -625,7 +579,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             groups = []
 
         if nproc > 1:
-            # restart-granular merge (VERDICT r4 item 3): all-gather
+            # restart-granular merge: all-gather
             # every restart's hard assignment (m int32), likelihood
             # and sweep count, so every host accumulates the IDENTICAL
             # consensus even though one item's restarts now live on

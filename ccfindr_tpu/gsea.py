@@ -105,10 +105,9 @@ def _gsea_perm_pvalues(glist, gwgt, gset, es, p=0.0, nperm=1000,
     together, so each permuted enrichment score is a cumsum/max over a
     row-shuffled copy of precomputed vectors — evaluated here for
     whole CHUNKS of permutations at once with 2-D numpy cumsums
-    instead of re-running the pandas scorer per permutation (the
-    round-2 loop re-scored the full table nperm times in Python —
-    minutes at vignette scale; VERDICT round 2 'host-side QC doesn't
-    scale').  Permutations are drawn independently per cluster (the
+    instead of re-running the pandas scorer per permutation (an
+    earlier loop re-scored the full table nperm times in Python —
+    minutes at vignette scale).  Permutations are drawn independently per cluster (the
     serial scorer permuted all clusters with one shared permutation;
     marginal null distributions are identical)."""
     rng = np.random.default_rng(seed)

@@ -1,10 +1,10 @@
 """ELL-layout sparse kernels: gather-only sufficient statistics.
 
 The COO backend (ops/sparse.py) scans nonzero chunks and accumulates
-``swn``/``shn`` with ``.at[].add`` — an XLA *scatter*, which TPUs
-serialize (measured ~205x slower than the dense fused kernel at 10%
-density, BENCH notes).  This module removes every scatter by storing
-the nonzeros twice, each layout aligned with one output:
+``swn``/``shn`` with ``.at[].add`` — an XLA *scatter*, with
+conflicting updates to the same output rows.  This module removes
+every scatter by storing the nonzeros twice, each layout aligned with
+one output:
 
 * **by-gene ELL** ``(n, Kg)`` — slot k of row i holds the k-th nonzero
   of gene i (cell index + value).  ``swn[i] = sum_k a_ik * lh[:,c_ik]``
@@ -133,8 +133,9 @@ def from_scipy_ell(mat, dtype=jnp.float32, quantile: float = 0.98,
                    lane: int = 128) -> EllCounts:
     """Build the dual hybrid ELL+COO layout from a scipy sparse (or
     dense) matrix.  Done once per factorization on host.  ``lane``
-    floors/rounds the ELL widths (128 = TPU lane count; tests shrink
-    it to exercise overflow tails on tiny matrices)."""
+    is the padding granularity that floors/rounds the ELL widths
+    (tests shrink it to exercise overflow tails on tiny
+    matrices)."""
     import scipy.sparse as sp
 
     csr = sp.csr_matrix(mat)
@@ -406,7 +407,7 @@ def make_ell_fused():
 def ell_ml_h(ec: EllCounts, w, h):
     """ML H-phase over nonzeros: (hn, xlogwh) with
     hn = w^T (x/wh) and xlogwh = sum x log(wh) — the ELL dual of
-    ops.pallas.ml_kernels.ml_h_pallas (contract of
+    ops.ml.ml_h_dense (contract of
     ops.ml.ml_run(fused_h=...)).  By-cell gather pass + overflow
     tail; O(nnz*r), no densification."""
     n, m = ec.n, ec.m

@@ -1,7 +1,7 @@
 """Maximum-likelihood (Lee–Seung KL) NMF kernels in JAX.
 
-TPU redesign of the reference's ML path (R/factorize.R:2-49): one
-multiplicative sweep = 4 rank-r GEMMs on the MXU; the convergence loop
+Redesign of the reference's ML path (R/factorize.R:2-49) for an
+accelerator: one multiplicative sweep = 4 rank-r GEMMs; the convergence loop
 is a ``lax.while_loop`` batched over restarts with ``vmap``.
 
 The 'connectivity' stopping criterion compares hard cluster partitions
@@ -146,7 +146,7 @@ def ml_run(x, w0, h0, *, itmax=10000, tol: float = 1e-5,
     sweeps with an unchanged hard-cluster partition.
 
     ``fused_h``/``fused_w``, if given, are single-pass kernels
-    (ops.pallas.ml_kernels or the ml_*_dense pair above):
+    (ops.pallas.xpass.MLXPass or the ml_*_dense pair above):
     ``fused_h(x, w, h) -> (hn, xlogwh)`` and
     ``fused_w(x, w, h') -> wn``.  The loop then evaluates the
     likelihood of sweep t inside sweep t+1's H pass (same (w, h)),

@@ -1,3 +1,1 @@
-from .vb_kernels import (  # noqa: F401
-    make_pallas_backend, make_fused_backend, pad_matrix,
-    suffstats_pallas, elbo_data_pallas, fused_pallas)
+"""GPU kernels (Pallas, Triton route)."""

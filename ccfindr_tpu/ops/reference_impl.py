@@ -67,6 +67,29 @@ def vb_sweep_np(x, lw, lh, ew, eh, aw, bw, ah, bh, fudge=EPS):
                 alw=alw, bew=bew, alh=alh, beh=beh, lkh=lkh)
 
 
+def xpass_np(x, lw, lh, block_rows=1024):
+    """The three X-pass contractions of one sweep in float64:
+    ``swn = (x/wth) @ lh^T``, ``shn = lw^T @ (x/wth)`` and
+    ``xlog = sum x*log(wth)`` with ``wth = lw @ lh`` — the oracle of
+    ops.pallas.xpass.  Runs over row blocks of ``block_rows`` genes so
+    a large matrix never needs an n x m float64 temporary."""
+    lw = np.asarray(lw, dtype=np.float64)
+    lh = np.asarray(lh, dtype=np.float64)
+    n = lw.shape[0]
+    swn = np.empty((n, lw.shape[1]))
+    shn = np.zeros(lh.shape)
+    xlog = 0.0
+    for i0 in range(0, n, block_rows):
+        xb = np.asarray(x[i0:i0 + block_rows], dtype=np.float64)
+        lwb = lw[i0:i0 + block_rows]
+        wth = lwb @ lh
+        u = xb / wth
+        swn[i0:i0 + block_rows] = u @ lh.T
+        shn += lwb.T @ u
+        xlog += float(np.sum(xb * np.log(wth)))
+    return swn, shn, xlog
+
+
 def hyper_update_np(mask, lw, lh, ew, eh, aw, bw, ah, bh,
                     niter=100, tol=1e-4, strict=True):
     """Empirical-Bayes gamma-hyperparameter update in float64.

@@ -1,11 +1,11 @@
-"""Randomized truncated SVD on device (TPU-native irlba equivalent).
+"""Randomized truncated SVD on device (an irlba equivalent).
 
 The reference initializes VB-NMF from a truncated SVD via irlba on the
 host (R/bayesian.R:150-159); at atlas scale (10^5-10^6 cells) a host
 Lanczos on a densified matrix is the bottleneck SURVEY §7.3 flags.
 This module implements the Halko-Martinsson-Tropp randomized
 range-finder entirely in JAX: the only operations touching X are tall
-GEMMs X @ Omega and X^T @ Q — MXU work that GSPMD shards over the cell
+GEMMs X @ Omega and X^T @ Q — matrix-unit work that GSPMD shards over the cell
 axis when X is mesh-sharded, and that run as O(nnz * k) COO scans for
 ops.sparse.SparseCounts input (no densification anywhere).
 

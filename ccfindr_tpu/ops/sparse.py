@@ -215,11 +215,11 @@ def elbo_data_coo(sc: SparseCounts, lw, lh, chunk: int = 1 << 16):
 def fused_coo(sc: SparseCounts, lw, lh, chunk: int = 1 << 16):
     """Single-scan fused backend: suffstat numerators AND the ELBO data
     term for the same (lw, lh) — one pass over the nonzeros instead of
-    two (the sparse analog of ops.pallas.fused_pallas, for
+    two (the sparse analog of ops.vb.fused_dense, for
     vb_run(fused=...)).
 
     The S-dependent ELBO part folds into the suffstats (bilinearity,
-    see ops.pallas.vb_kernels.fold_dterm), so the scan body only
+    see ops.pallas.xpass.fold_dterm), so the scan body only
     gathers lw/lh — no lw*log(lw)/lh*log(lh) gathers.
     """
     r = lw.shape[1]

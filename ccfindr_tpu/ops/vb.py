@@ -1,12 +1,11 @@
-"""Variational-Bayes NMF kernels (JAX / XLA, TPU-first).
+"""Variational-Bayes NMF math (JAX / XLA).
 
-TPU-native redesign of the reference's hot path
-(src/vbnmf_update.cpp:16-102 and driver loop R/bayesian.R:303-390):
+Redesign of the reference's hot path (src/vbnmf_update.cpp:16-102 and
+driver loop R/bayesian.R:303-390) for an accelerator:
 
 * State is an immutable pytree (:class:`VBState`); one CAVI sweep is the
-  pure function :func:`vb_sweep` — three rank-r GEMMs on the MXU plus
-  fused element-wise gamma-posterior updates and digamma/lgamma on the
-  VPU.
+  pure function :func:`vb_sweep` — three rank-r GEMMs plus fused
+  element-wise gamma-posterior updates and digamma/lgamma.
 * The constant ``sum(lgamma(X+1))`` term of the ELBO is hoisted out of
   the loop (the reference recomputes it every sweep,
   src/vbnmf_update.cpp:80-81).
@@ -18,8 +17,8 @@ TPU-native redesign of the reference's hot path
   restart farm, R/bayesian.R:262-263), and the per-restart
   empirical-Bayes Newton update runs as a nested while_loop.
 
-All functions preserve input dtype: float32 on TPU, float64 on CPU for
-parity testing (the rebuild's useC=FALSE analog).
+All functions preserve input dtype: float32 on the accelerator,
+float64 on CPU for parity testing (the rebuild's useC=FALSE analog).
 """
 
 from __future__ import annotations
@@ -66,9 +65,8 @@ def trigamma(x):
     series (Abramowitz & Stegun 6.4.12).
 
     jax.scipy.special.polygamma(1, .) evaluates the Hurwitz zeta
-    function — ~10x more arithmetic; inside hyper_update's Newton
-    chain (99 sequential scalar iterations per sweep) that latency
-    dominated whole production sweeps.  Agreement vs polygamma:
+    function — ~10x more arithmetic inside hyper_update's sequential
+    scalar Newton chain.  Agreement vs polygamma:
     < 2e-15 relative in f64, f32-exact in f32, for x in [1e-3, 1e6].
     """
     shift = 10.0
@@ -80,121 +78,25 @@ def trigamma(x):
         acc = acc + jnp.where(xs < shift, 1.0 / (xs * xs), 0.0)
         xs = jnp.where(xs < shift, xs + 1.0, xs)
     z = 1.0 / (xs * xs)
-    # 1/x + 1/(2x^2) + 1/x^3 * (B2 + z*(B4 + z*(B6 + z*(B8 + z*B10))));
-    # Horner with PYTHON floats (no captured array constant) so the
-    # same function lowers inside Pallas kernels (see _horner)
+    # 1/x + 1/(2x^2) + 1/x^3 * (B2 + z*(B4 + z*(B6 + z*(B8 + z*B10))))
     series = _horner([-691.0 / 2730.0, 5.0 / 66.0, -1.0 / 30.0,
                       1.0 / 42.0, -1.0 / 30.0, 1.0 / 6.0], z)
     return acc + 1.0 / xs + 0.5 * z + z / xs * series
 
 
 def _horner(coeffs, z):
-    """Horner evaluation with PYTHON float coefficients — no array
-    constants, so it can be closed over inside a Pallas kernel (a
-    jnp.polyval coefficient array would be a captured constant, which
-    pallas_call rejects)."""
+    """Horner evaluation with Python float coefficients."""
     acc = jnp.full_like(z, coeffs[0])
     for c in coeffs[1:]:
         acc = acc * z + c
     return acc
 
 
-def digamma_approx(x):
-    """psi(x) for x > 0: recurrence to x >= 10 + Bernoulli asymptotic
-    series — composed only of ops with Pallas TPU lowerings
-    (where/log/mul; jax.scipy.special.digamma does NOT lower in
-    Mosaic), so the gamma-posterior epilogue can run inside a kernel.
-    Max rel err vs scipy: < 1e-12 in f64 (abs < 1e-11 near the zero at
-    1.4616), f32 ulp-level, for x in [1e-4, 1e9]
-    (tests/test_vb_kernel.py).
-    """
-    shift = 10.0
-    acc = jnp.zeros_like(x)
-    xs = x
-    # psi(x) = psi(x + k) - sum_{i=0}^{k-1} 1/(x+i)
-    for _ in range(10):
-        acc = acc + jnp.where(xs < shift, 1.0 / xs, 0.0)
-        xs = jnp.where(xs < shift, xs + 1.0, xs)
-    z = 1.0 / (xs * xs)
-    # sum_{n>=1} B_2n/(2n) x^-2n, truncated at n=7 (err ~4e-17 at x=10)
-    series = _horner([1.0 / 12.0, -691.0 / 32760.0, 1.0 / 132.0,
-                      -1.0 / 240.0, 1.0 / 252.0, -1.0 / 120.0,
-                      1.0 / 12.0], z)
-    return jnp.log(xs) - 0.5 / xs - z * series - acc
-
-
-def gammaln_approx(x):
-    """lgamma(x) for x > 0: recurrence to x >= 10 + Stirling series —
-    Pallas-lowerable twin of jax.scipy.special.gammaln (see
-    :func:`digamma_approx`).  Max rel err vs scipy < 1e-11 in f64.
-    """
-    shift = 10.0
-    prod = jnp.ones_like(x)
-    xs = x
-    # lgamma(x) = lgamma(x + k) - log(x (x+1) ... (x+k-1)); the shift
-    # product is < 10! so it cannot overflow even in f32
-    for _ in range(10):
-        prod = jnp.where(xs < shift, prod * xs, prod)
-        xs = jnp.where(xs < shift, xs + 1.0, xs)
-    z = 1.0 / (xs * xs)
-    # sum_{n>=1} B_2n/(2n(2n-1)) x^-(2n-1), truncated at n=7
-    series = _horner([1.0 / 156.0, -691.0 / 360360.0, 1.0 / 1188.0,
-                      -1.0 / 1680.0, 1.0 / 1260.0, -1.0 / 360.0,
-                      1.0 / 12.0], z)
-    half_log2pi = 0.9189385332046727417803297364056176
-    return ((xs - 0.5) * jnp.log(xs) - xs + half_log2pi
-            + series / xs - jnp.log(prod))
-
-
-def digamma_gammaln_both(x):
-    """(psi(x), lgamma(x)) sharing ONE recurrence shift chain.
-
-    The gamma-posterior epilogue needs both functions of the same
-    argument (alw / alh); separately each runs its own 10-step
-    conditional shift — the dominant VPU cost of the epilogue kernels.
-    Here the shift (reciprocal-sum, product, and increment) is computed
-    once.  f32 uses a shorter chain (shift to x >= 6, 6 steps, 3-term
-    series — truncation ~2.5e-9, well below f32 eps); f64 keeps the
-    full 10/7 configuration of digamma_approx/gammaln_approx.
-    """
-    f32 = x.dtype == jnp.float32
-    shift, steps = (6.0, 6) if f32 else (10.0, 10)
-    acc = jnp.zeros_like(x)
-    prod = jnp.ones_like(x)
-    xs = x
-    for _ in range(steps):
-        lt = xs < shift
-        acc = acc + jnp.where(lt, 1.0 / xs, 0.0)
-        prod = prod * jnp.where(lt, xs, 1.0)
-        xs = jnp.where(lt, xs + 1.0, xs)
-    z = 1.0 / (xs * xs)
-    logxs = jnp.log(xs)
-    if f32:
-        dig_series = _horner([1.0 / 252.0, -1.0 / 120.0, 1.0 / 12.0],
-                             z)
-        lg_series = _horner([1.0 / 1260.0, -1.0 / 360.0, 1.0 / 12.0],
-                            z)
-    else:
-        dig_series = _horner([1.0 / 12.0, -691.0 / 32760.0,
-                              1.0 / 132.0, -1.0 / 240.0, 1.0 / 252.0,
-                              -1.0 / 120.0, 1.0 / 12.0], z)
-        lg_series = _horner([1.0 / 156.0, -691.0 / 360360.0,
-                             1.0 / 1188.0, -1.0 / 1680.0,
-                             1.0 / 1260.0, -1.0 / 360.0, 1.0 / 12.0],
-                            z)
-    half_log2pi = 0.9189385332046727417803297364056176
-    psi = logxs - 0.5 / xs - z * dig_series - acc
-    lgam = ((xs - 0.5) * logxs - xs + half_log2pi
-            + lg_series / xs - jnp.log(prod))
-    return psi, lgam
-
-
 def suffstats_dense(x, lw, lh):
     """Sufficient statistics of one sweep on a dense count matrix.
 
     sw = lw * ((x / (lw@lh)) @ lh^T),  sh = lh * (lw^T @ (x / (lw@lh))).
-    Kept as a seam so the Pallas fused kernel / sparse path can be
-    swapped in (see ops/pallas/vb_kernels.py).
+    Kept as a seam so the sparse paths can be swapped in.
     """
     acc = jnp.promote_types(lw.dtype, jnp.float32)
     wth = lax.dot(lw, lh, precision=lax.Precision.HIGHEST,
@@ -356,8 +258,8 @@ def vb_sweep(x, state: VBState, hyper: Hyper, fudge, lgx,
     """One CAVI sweep; exact math of reference src/vbnmf_update.cpp:33-90.
 
     ``lgx`` is the precomputed constant  sum_ij lgamma(x_ij + 1).
-    ``suffstats`` / ``data_term`` are injection points for the Pallas /
-    sparse kernels; with those backends ``x`` may be zero-padded to tile
+    ``suffstats`` / ``data_term`` are injection points for other
+    kernels (e.g. the sparse layouts); with those backends ``x`` may be zero-padded to tile
     boundaries (padding contributes nothing), so the true (n, m) come
     from the state shapes.  Masking semantics: see
     :func:`posterior_update`.
@@ -380,8 +282,8 @@ def vb_sweep(x, state: VBState, hyper: Hyper, fudge, lgx,
 def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
                  tol: float = 1e-4, cell_mask=None, m_true=None,
                  rank_mask=None, r_true=None,
-                 gene_mask=None, n_true=None,
-                 means=None) -> tuple[Hyper, jax.Array]:
+                 gene_mask=None, n_true=None
+                 ) -> tuple[Hyper, jax.Array]:
     """Damped-Newton update of gamma shapes + closed-form means.
 
     ``mask`` is a static 4-tuple of bools for (aw, bw, ah, bh).
@@ -393,20 +295,12 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
     mask[3] is FALSE (R/bayesian.R:50-51, latent bug); here the mask is
     honored.  ``cell_mask``/``m_true`` restrict the H-side means to
     real cells under mesh padding.
-
-    ``means=(lwm, ewm, lhm, ehm)`` supplies the four factor means
-    directly (mean log lw, mean ew, mean log lh, mean eh over real
-    entries) — the Pallas-epilogue loop computes them as kernel
-    byproducts, skipping four standalone XLA reductions per sweep;
-    ``state`` may then be None.
     """
     mask = tuple(bool(b) for b in mask)
     if not any(mask):
         return hyper, jnp.asarray(False)
 
-    if means is not None:
-        lwm, ewm, lhm, ehm = means
-    elif cell_mask is None and rank_mask is None and gene_mask is None:
+    if cell_mask is None and rank_mask is None and gene_mask is None:
         lwm = jnp.mean(jnp.log(state.lw))
         ewm = jnp.mean(state.ew)
         lhm = jnp.mean(jnp.log(state.lh))
@@ -455,9 +349,7 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
             # with d/2^k < a0 is floor(log2(d/a0)) + 1; halving by 2
             # is exact in fp, so d * 2^-k equals iterated halving
             # bit-for-bit.  One select each way absorbs log2 ulp
-            # error.  (Replaces a 64-step unrolled select chain that,
-            # x99 Newton iterations x2 shapes, made hyper_update 2.5x
-            # the cost of the fused sweep kernel.)
+            # error.  (Replaces a 64-step unrolled select chain.)
             k = jnp.maximum(jnp.floor(jnp.log2(d / a0)) + 1.0, 0.0)
             k = jnp.where((d > 0) & jnp.isfinite(d), k, 0.0)
             ki = jnp.clip(k, 0.0, 2100.0).astype(jnp.int32)
@@ -482,11 +374,10 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
             return it + 1, aw1, ah1, df < tol
 
         # early-exit while_loop: warm-started from the previous
-        # sweep's shapes, Newton converges in 1-5 iterations — a
-        # fixed-trip fori burned ~5.5 us of pure scalar-chain latency
-        # per dead iteration x 94 dead iterations x every sweep
-        # (more than the fused n x m kernel itself).  Converged
-        # results are identical: the fori's masked tail was a no-op.
+        # sweep's shapes, Newton converges in 1-5 iterations, so a
+        # fixed trip count would spend most of its sequential scalar
+        # chain on dead iterations.  Converged results are identical:
+        # a fixed-trip loop's masked tail is a no-op.
         _, aw1, ah1, done = lax.while_loop(
             loop_cond, loop_body,
             (jnp.asarray(0), aw0, ah0, jnp.asarray(False)))
@@ -533,7 +424,7 @@ def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
     ``method``: ``'exact'`` — host LAPACK/Lanczos (the irlba analog);
     ``'randomized'`` — ops.rsvd.randomized_svd on DEVICE (sharded tall
     GEMMs / COO scans; the atlas-scale path, SURVEY §7.3 "SVD init on
-    TPU"); ``'auto'`` — exact below 4096 on the short axis, randomized
+    device"); ``'auto'`` — exact below 4096 on the short axis, randomized
     above.  ``x`` may be dense, scipy sparse, or a
     ops.sparse.SparseCounts — never densified.
     """
@@ -670,7 +561,7 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
     vmap-compatible: batching over restarts turns the while_loop into a
     run-until-all-converged masked loop.
 
-    ``x`` may be a dense array, a Pallas-padded dense array, or a
+    ``x`` may be a dense array, a tile-padded dense array, or a
     ops.sparse.SparseCounts pytree (with matching suffstats/data_term
     backends); lgamma(x+1) over zeros is 0, so the hoisted constant is
     the same in every layout.

@@ -4,10 +4,11 @@ The distributed design (SURVEY.md §2.3/§5): within one factorization the
 data-parallel axis is **cells** — X and H are column-sharded, W is
 replicated, and XLA/GSPMD inserts the per-sweep all-reduces
 (length-r ``rowSums(eh)``, n x r sufficient-stat partials, scalar ELBO)
-over ICI.  Independent restarts / rank values form the **runs** batch
-axis (replacing the reference's Rmpi restart farm,
-R/bayesian.R:262-263).  Multi-host pods additionally call
-:func:`init_distributed` so DCN joins the same mesh.
+over the device interconnect (NCCL on GPUs).  Independent restarts /
+rank values form the **runs** batch axis (replacing the reference's
+Rmpi restart farm, R/bayesian.R:262-263).  Multi-process runs
+additionally call :func:`init_distributed` so every process joins the
+same mesh.
 """
 
 from __future__ import annotations
@@ -62,16 +63,23 @@ def cell_sharding(mesh: Mesh, kind: str) -> NamedSharding:
 
 
 def init_distributed(coordinator_address=None, num_processes=None,
-                     process_id=None):
-    """Initialize multi-host JAX (DCN) if running under a pod launcher.
+                     process_id=None, local_device_ids=None):
+    """Initialize multi-process JAX.
 
     Safe no-op when single-process.  Equivalent role to the reference's
     Rmpi initialization (DESCRIPTION:8), but collectives ride the mesh
-    rather than a task queue.
+    rather than a task queue.  ``local_device_ids`` pins this process
+    to those local devices — when several processes share one GPU host,
+    pass ``[process_id]`` (or any disjoint split) so each opens only
+    its own card; a JAX process otherwise reserves memory on every
+    visible card.
     """
     if num_processes is None or num_processes <= 1:
         return False
+    kw = {}
+    if local_device_ids is not None:
+        kw["local_device_ids"] = list(local_device_ids)
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id, **kw)
     return True

@@ -58,8 +58,7 @@ def gather_results(local_values: np.ndarray, local_idx: np.ndarray,
 def gather_rows(local_rows, local_idx, n_items: int, row_len: int,
                 process_count=None):
     """All-gather per-item integer VECTOR results (e.g. the per-restart
-    hard cluster assignments the ML consensus needs — m int32 each,
-    VERDICT r4 item 3).
+    hard cluster assignments the ML consensus needs — m int32 each).
 
     Each item is owned by exactly one process (partition_items);
     non-owners contribute all-zero rows, so summing the gathered

@@ -1,9 +1,9 @@
 """Sharded fused-kernel backends: explicit SPMD over the cell axis.
 
 The dense mesh path lets GSPMD auto-partition the XLA einsums; this
-module instead runs the fused single-pass Pallas kernel PER SHARD via
-``shard_map`` and inserts the collectives by hand — the TPU-native
-analog of the communication plan in SURVEY.md §2.3/§5:
+module instead runs a fused single-pass kernel PER SHARD via
+``shard_map`` and inserts the collectives by hand (the communication
+plan in SURVEY.md §2.3/§5):
 
 per sweep, each device reads only its (genes x local-cells) block of X
 and contributes
@@ -14,59 +14,44 @@ and contributes
 * ``psum`` of the scalar ELBO data term.
 
 Communication per sweep is O(n*r) floats — tiny next to the
-O(n*m_local*r) on-chip compute.
+O(n*m_local*r) on-device compute.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
+import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:                                     # JAX >= 0.8
-    from jax import shard_map as _shard_map
 
-    def _smap(fn, mesh, in_specs, out_specs):
-        return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=False)
-except ImportError:                      # older JAX
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-    def _smap(fn, mesh, in_specs, out_specs):
-        return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_rep=False)
+def _smap(fn, mesh, in_specs, out_specs):
+    return shard_map(fn, mesh=mesh, in_specs=in_specs,
+                     out_specs=out_specs, check_vma=False)
 
 
 def make_fused_sharded(mesh: Mesh, fused_local=None,
-                       bn: int = None, bm: int = None,
-                       mxu_bf16: bool = False):
+                       precision: str = "f32"):
     """Fused backend for ops.vb.vb_run(fused=...) over a cell-sharded
     mesh.
 
-    ``fused_local(x_local, lw, lh_local) -> (swn_part, shn_local,
-    dterm_part)`` runs on each device's X block; defaults to the
-    single-pass Pallas kernel (ops.pallas.fused_pallas), which
-    zero-pads its local block to tile boundaries internally (padding
-    contributes nothing).  X must be sharded P(None, 'cells') and the
-    global cell count divisible by the 'cells' axis size (the driver's
-    cell padding + mask guarantees this).
+    ``fused_local(x_local, lw, lh_local, do_elbo=None) -> (swn_part,
+    shn_local, dterm_part)`` runs on each device's X block; defaults
+    to the fused X-pass GPU kernel (ops.pallas.xpass) at
+    ``precision``.  X must be sharded P(None, 'cells') (or
+    P('genes', 'cells')) and its extents divisible by the mesh axes
+    (the driver's padding + masks guarantee this; it also pads each
+    shard to whole kernel tiles so no sweep copies X).  Accepts
+    vb_run's ``do_elbo`` flag (elbo_every cadence).
     """
     if fused_local is None:
-        from ..ops.pallas import vb_kernels as pk
-        kw = {"mxu_bf16": mxu_bf16}
-        if bn is not None:
-            kw["bn"] = bn
-        if bm is not None:
-            kw["bm"] = bm
-
-        def fused_local(x, lw, lh):
-            return pk.fused_pallas(x, lw, lh, **kw)
+        from ..ops.pallas import xpass
+        fused_local = xpass.make_vb_backend(precision)
 
     g = "genes" if "genes" in mesh.axis_names else None
 
-    def local(x, lw, lh):
-        swn, shn, dterm = fused_local(x, lw, lh)
+    def local(x, lw, lh, do_elbo):
+        swn, shn, dterm = fused_local(x, lw, lh, do_elbo=do_elbo)
         # duals: swn rows are gene-local, reduce over cell shards;
         # shn cols are cell-local, reduce over gene shards
         swn = jax.lax.psum(swn, "cells")
@@ -77,10 +62,17 @@ def make_fused_sharded(mesh: Mesh, fused_local=None,
             dterm = jax.lax.psum(dterm, "cells")
         return swn, shn, dterm
 
-    return _smap(local, mesh,
-                 in_specs=(P(g, "cells"), P(g, None),
-                           P(None, "cells")),
-                 out_specs=(P(g, None), P(None, "cells"), P()))
+    sharded = _smap(local, mesh,
+                    in_specs=(P(g, "cells"), P(g, None),
+                              P(None, "cells"), P()),
+                    out_specs=(P(g, None), P(None, "cells"), P()))
+
+    def fused(x, lw, lh, do_elbo=None):
+        if do_elbo is None:
+            do_elbo = jnp.ones((), lw.dtype)
+        return sharded(x, lw, lh, do_elbo)
+
+    return fused
 
 
 def make_sparse_fused_sharded(mesh: Mesh, chunk: int = 1 << 16):
@@ -141,96 +133,25 @@ def make_ell_fused_sharded(mesh: Mesh):
                  out_specs=(P(None, None), P(None, "cells"), P()))
 
 
-def make_tile_fused_sharded(mesh: Mesh, mxu_bf16: bool = False):
-    """Fused tile-sparse backend for ops.vb.vb_run(fused=...) over a
-    cell-sharded mesh — the Pallas capacity path, NO dense X anywhere.
-
-    ``x`` is an ops.tile.TileCounts built by
-    ``from_scipy_tile_sharded(csr, mesh.shape['cells'])``: every leaf
-    carries a leading shard axis over 'cells', cell indices local to
-    the shard.  Collectives are identical to the other sparse sharded
-    paths: psum of the n x r swn partial and the scalar ELBO term;
-    shn is cell-local.  Accepts vb_run's optional ``do_elbo`` flag
-    (elbo_every cadence) and ``mxu_bf16`` (precision='bf16').
-    """
-    from ..ops import tile as tl
-
-    def local(x, lw, lh, do_elbo):
-        tc = jax.tree.map(lambda a: a[0], x)
-        swn, shn, dterm = tl.fused_tile(tc, lw, lh, do_elbo=do_elbo,
-                                        mxu_bf16=mxu_bf16)
-        swn = jax.lax.psum(swn, "cells")
-        dterm = jax.lax.psum(dterm, "cells")
-        return swn, shn, dterm
-
-    sharded = _smap(local, mesh,
-                    in_specs=(P("cells"), P(None, None),
-                              P(None, "cells"), P()),
-                    out_specs=(P(None, None), P(None, "cells"), P()))
-
-    def fused(x, lw, lh, do_elbo=None):
-        import jax.numpy as jnp
-        if do_elbo is None:
-            do_elbo = jnp.ones((), lw.dtype)
-        return sharded(x, lw, lh, do_elbo)
-
-    return fused
-
-
-def make_tile_ml_sharded(mesh: Mesh):
-    """(fused_h, fused_w) ML backends over a cell-sharded tile-sparse
-    layout — sparse `factorize` on a mesh (reference scale story
-    R/factorize.R:139-276, here without densification).
-
-    Same collective pattern as :func:`make_ml_sharded`: the H-phase
-    numerator stays cell-local and the likelihood scalar psums; the
-    W-phase numerator (n x r) psums over cell shards.
-    """
-    from ..ops import tile as tl
-
-    def local_h(x, w, h):
-        tc = jax.tree.map(lambda a: a[0], x)
-        hn, xlw = tl.tile_ml_h(tc, w, h)
-        return hn, jax.lax.psum(xlw, "cells")
-
-    def local_w(x, w, h):
-        tc = jax.tree.map(lambda a: a[0], x)
-        return jax.lax.psum(tl.tile_ml_w(tc, w, h), "cells")
-
-    fused_h = _smap(local_h, mesh,
-                    in_specs=(P("cells"), P(None, None),
-                              P(None, "cells")),
-                    out_specs=(P(None, "cells"), P()))
-    fused_w = _smap(local_w, mesh,
-                    in_specs=(P("cells"), P(None, None),
-                              P(None, "cells")),
-                    out_specs=P(None, None))
-    return fused_h, fused_w
-
-
-def make_ml_sharded(mesh: Mesh, bn: int = None, bm: int = None):
+def make_ml_sharded(mesh: Mesh):
     """(fused_h, fused_w) ML backends over a cell-sharded mesh.
 
     Per sweep each device reads only its (genes x local-cells) block:
     the H-update numerator and H itself stay local (no communication);
     the W-update numerator (n x r) and the scalar likelihood term are
     psum'd — the same O(n*r) per-sweep communication as the VB path.
-    Local blocks run the fused Pallas ML kernels (which tile-pad their
-    shard internally).
+    Each device runs the fused X-pass GPU kernel's ML phases.
     """
-    from ..ops.pallas import ml_kernels as mlk
-    kw = {}
-    if bn is not None:
-        kw["bn"] = bn
-    if bm is not None:
-        kw["bm"] = bm
+    from ..ops.pallas import xpass
+
+    fh, fw = xpass.make_ml_backend()
 
     def local_h(x, w, h):
-        hn, xlw = mlk.ml_h_pallas(x, w, h, **kw)
+        hn, xlw = fh(x, w, h)
         return hn, jax.lax.psum(xlw, "cells")
 
     def local_w(x, w, h):
-        return jax.lax.psum(mlk.ml_w_pallas(x, w, h, **kw), "cells")
+        return jax.lax.psum(fw(x, w, h), "cells")
 
     fused_h = _smap(local_h, mesh,
                     in_specs=(P(None, "cells"), P(None, None),

@@ -84,10 +84,9 @@ def has_mode_rows(csr: sp.csr_matrix) -> np.ndarray:
     Builds each row's (value, multiplicity) table from the nonzeros by
     one lexsort + run-length encoding, prepends the implicit-zeros
     group, and flags rows with any ascending step — O(nnz log nnz)
-    total, no Python-per-gene loop and no densified rows (the round-2
+    total, no Python-per-gene loop and no densified rows (an earlier
     implementation looped ``csr.getrow(i)`` + a dense scratch row per
-    gene; at atlas gene counts that was minutes,
-    VERDICT round 2 'host-side QC doesn't scale')."""
+    gene; at atlas gene counts that was minutes)."""
     csr = sp.csr_matrix(csr)
     nrow, m = csr.shape
     nnz_per = np.diff(csr.indptr)

@@ -3,7 +3,7 @@
 The reference's only runtime visibility is leveled verbose printing
 (R/bayesian.R:349-351); here structured per-phase timings are recorded
 into SCSet.metadata and a jax.profiler trace context is provided for
-TPU-level analysis (SURVEY.md §5 tracing item).
+device-level analysis (SURVEY.md §5 tracing item).
 """
 
 from __future__ import annotations

@@ -45,10 +45,10 @@ GROUPS = [
     ("GSEA cell typing", "gsea",
      "Marker-gene-set enrichment (reference: R/gsea.R)."),
     ("Parallelism", "parallel",
-     "Device meshes and multi-host initialization (TPU-native; "
-     "reference analog: Rmpi restart distribution)."),
+     "Device meshes and multi-process initialization (reference "
+     "analog: Rmpi restart distribution)."),
     ("Checkpointing", "checkpoint",
-     "Result persistence and resume (TPU-native addition)."),
+     "Result persistence and resume (an addition to the reference)."),
 ]
 
 

@@ -1,9 +1,9 @@
 """Atlas-scale end-to-end demo: the full ccfindR workflow at 100k cells.
 
-BASELINE.md's "configs to report" row 4 analog (100k-cell sparse
-atlas, rank-20 VB) as a SCIENCE run, not just a kernel benchmark:
-simulate a 12-type atlas (20,480 genes x 100,352 cells), then run the
-complete pipeline on one TPU chip —
+BASELINE.json's configs row 4 analog (100k-cell sparse atlas,
+rank-20 VB) as a SCIENCE run, not just a kernel benchmark: simulate a
+12-type atlas (20,480 genes x 100,352 cells), then run the complete
+pipeline on one GPU —
 
     QC (filter_cells/filter_genes) -> VB rank scan 2..20 (batched,
     int8 auto storage) -> optimal_rank -> cluster tree -> metagenes ->
@@ -12,7 +12,7 @@ complete pipeline on one TPU chip —
 — printing wall-clock per phase and checking the planted structure is
 recovered (ropt ~= 12, cluster assignments concordant with the planted
 types).  The vignette does exactly this at 450 cells
-(/root/reference/vignettes/ccfindR.Rmd:122-477); this demo is the
+(vignettes/ccfindR.Rmd:122-477); this demo is the
 200x-scale version the reference's dense-R path cannot reach.
 
 Usage: python examples/atlas_demo.py [--quick]
@@ -20,10 +20,12 @@ Usage: python examples/atlas_demo.py [--quick]
 """
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -64,12 +66,10 @@ def simulate_atlas(n_genes=20480, n_cells=100352, rank=PLANT_RANK,
 
 def main():
     quick = "--quick" in sys.argv
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      1.0)
     import ccfindr_tpu as cf
+    from ccfindr_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     n_genes = 2048 if quick else 20480
     n_cells = 2048 if quick else 100352

@@ -1,12 +1,16 @@
 """End-to-end PBMC workflow — the reference vignette replayed
-(vignettes/ccfindR.Rmd:122-477) on TPU.
+(vignettes/ccfindR.Rmd:122-477) on a GPU.
 
 Reads the bundled 10x PBMC subsample (1,030 genes x 450 cells drawn
 from five purified immune subsets), QC-filters, runs the VB rank scan,
 selects the optimal rank (ground truth: 5), extracts metagenes, builds
 the cluster tree, and assigns cell types by marker-gene GSEA.
 
-Usage:  python examples/pbmc_workflow.py [path/to/10x_dir]
+The rank scan runs on the fused X-pass GPU kernel
+(``backend='pallas'``); without a GPU pass ``--backend=dense`` to run
+the same math in plain XLA on the CPU.
+
+Usage:  python examples/pbmc_workflow.py [--backend=NAME] [path/to/10x_dir]
 """
 
 import sys
@@ -27,7 +31,7 @@ MARKERS = {
 }
 
 
-def main(tenx_dir=None):
+def main(tenx_dir=None, backend="pallas"):
     t0 = time.time()
     if tenx_dir is None:
         # real PBMC when the reference mount exists, else the bundled
@@ -53,10 +57,9 @@ def main(tenx_dir=None):
     print(f"after QC: {s.n_genes} x {s.n_cells}")
 
     # VB rank scan — all (rank, restart) instances run as one batched
-    # device loop on the fused single-pass Pallas kernel
+    # device loop on the fused X-pass kernel
     res = cf.vb_factorize(s, ranks=list(range(2, 9)), nrun=5,
-                          verbose=1, Itmax=3000,
-                          backend="pallas")
+                          verbose=1, Itmax=3000, backend=backend)
     opt = cf.optimal_rank(res)
     print(f"optimal rank: {opt['ropt']} (heterogeneity type "
           f"{opt['type']}; vignette ground truth: 5)")
@@ -86,4 +89,7 @@ def main(tenx_dir=None):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    opts = [a for a in sys.argv[1:] if a.startswith("--backend=")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--backend=")]
+    main(*args, **({"backend": opts[-1].split("=", 1)[1]}
+                   if opts else {}))

@@ -128,8 +128,7 @@ def test_batch_ranks_sweep_recovers_planted_rank():
 
 
 def test_batch_ranks_svd_init_runs():
-    # batch_ranks with a deterministic init is supported (VERDICT r3
-    # item 7); parity vs the sequential path is pinned by
+    # batch_ranks with a deterministic init is supported; parity vs the sequential path is pinned by
     # test_svd_init_batched_matches_sequential
     sim = cf.simulate_whx(nrow=20, ncol=25, rank=2, seed=42)
     s = cf.SCSet(count=sim["x"])
@@ -169,20 +168,20 @@ def test_schedule_partition():
     np.testing.assert_allclose(out[mine], vals[mine])
 
 
-def test_vb_backends_agree():
-    """dense / dense_fused / pallas (fused) / pallas2pass backends give
-    the same factorization: dense vs dense_fused exactly, pallas within
-    float tolerance."""
+def test_vb_backends_agree(pallas_interpret):
+    """dense / dense_fused / pallas (the fused X-pass kernel) backends
+    give the same factorization: dense vs dense_fused exactly, pallas
+    within float tolerance; the removed 'pallas2pass' is refused."""
     sim = cf.simulate_whx(nrow=24, ncol=40, rank=3, seed=21)
     s = cf.SCSet(count=sim["x"])
     outs = {b: cf.vb_factorize(s, ranks=3, nrun=2, verbose=0,
                                Itmax=300, backend=b, seed=5)
-            for b in ("dense", "dense_fused", "pallas", "pallas2pass")}
+            for b in ("dense", "dense_fused", "pallas")}
     lml = {b: float(o.measure["lml"][0]) for b, o in outs.items()}
     assert lml["dense"] == lml["dense_fused"]
     np.testing.assert_allclose(lml["pallas"], lml["dense"], rtol=1e-6)
-    np.testing.assert_allclose(lml["pallas2pass"], lml["dense"],
-                               rtol=1e-6)
+    with pytest.raises(ValueError, match="unknown backend"):
+        cf.vb_factorize(s, ranks=3, verbose=0, backend="pallas2pass")
     np.testing.assert_array_equal(outs["dense"].basis[0],
                                   outs["dense_fused"].basis[0])
     np.testing.assert_allclose(outs["pallas"].basis[0],
@@ -235,7 +234,7 @@ def test_checkpoint_every_matches_uninterrupted(tmp_path):
 
 
 def test_f32_f64_rank_selection_concordant():
-    """SURVEY §7.1 validation item: float32 (the TPU production dtype)
+    """SURVEY §7.1 validation item: float32 (the GPU production dtype)
     and float64 evidence profiles select the same optimal rank on
     oracle data."""
     import jax.numpy as jnp
@@ -313,10 +312,10 @@ def test_multihost_partitions_svd_init():
     assert out.ranks == [2, 3]
 
 
-def test_storage_dtype_integer_exact():
+def test_storage_dtype_integer_exact(pallas_interpret):
     """Compressed int16/uint8 X storage is EXACT: counts are integers,
-    kernels upcast in VMEM — results match the float-stored run
-    bit-for-bit (dense) / at float tolerance (pallas tiles)."""
+    kernels upcast in registers — results match the float-stored run
+    bit-for-bit (dense) / at float tolerance (pallas)."""
     sim = cf.simulate_whx(nrow=24, ncol=30, rank=3, seed=13)
     s = cf.SCSet(count=sim["x"])
     kw = dict(ranks=[2, 3], nrun=2, verbose=0, Itmax=300, seed=2)
@@ -341,7 +340,7 @@ def test_storage_dtype_integer_exact():
 
 
 def test_storage_dtype_auto_default():
-    """storage_dtype='auto' (the driver default since round 5):
+    """storage_dtype='auto' (the driver default):
     integer counts get the compressed layout with results identical
     to the uncompressed run (exact upcast); floats / overflow fall
     back to the full-precision stream instead of erroring."""
@@ -382,8 +381,7 @@ def test_storage_dtype_auto_default():
 
 
 def test_svd_init_batched_matches_sequential():
-    """Deterministic initializers run under batch_ranks (VERDICT r3
-    item 7): the batched padded-rank path equals the sequential
+    """Deterministic initializers run under batch_ranks: the batched padded-rank path equals the sequential
     per-rank path, and nrun > 1 collapses to one restart with
     identical results (reference computes nrun identical inits,
     R/bayesian.R:334-335)."""
@@ -433,7 +431,7 @@ def test_svd_init_mesh_batched():
 
 def test_compact_every_matches_unchunked():
     """Converged-lane compaction (compact_every) re-packs live lanes
-    into smaller batches at chunk boundaries (VERDICT r3 weakness 4).
+    into smaller batches at chunk boundaries.
     The fast on-device path runs the identical math in a different
     XLA fusion context, so recorded evidences may move at roundoff;
     everything must agree to float precision, and the checkpointed
@@ -460,7 +458,7 @@ def test_compact_every_matches_unchunked():
 
 
 def test_f32_f64_stopping_decision_larger_shape():
-    """SURVEY §7.3 / VERDICT r3 item 6: at a larger (many-partial)
+    """SURVEY §7.3: at a larger (many-partial)
     shape, the f32 production arithmetic must make the same stopping
     decision (within one sweep) and the same rank selection as f64 —
     the precision budget that the compensated ELBO accumulators

@@ -93,9 +93,9 @@ def test_two_process_distributed_matches_single_host(tmp_path):
 
 def test_three_process_idle_host(tmp_path):
     """More processes than work items: the idle host must JOIN the
-    collective exchange instead of raising/deadlocking (round-5 fix;
-    the owning hosts block in the all-gather otherwise).  VB with 2
-    (rank, run) items across 3 processes — every host, including the
+    collective exchange instead of raising/deadlocking (the owning
+    hosts block in the all-gather otherwise).  VB with 2 (rank, run)
+    items across 3 processes — every host, including the
     idle one, returns the single-host result bit-for-bit."""
     ranks, nrun, itmax, seed = [2, 3], 1, 150, 5
 
@@ -142,7 +142,7 @@ def test_three_process_ml_idle_host(tmp_path):
 
 
 def test_two_process_ml_restart_split_matches_single_host(tmp_path):
-    """Restart-granular ML multi-host (VERDICT r4 item 3): ONE rank
+    """Restart-granular ML multi-host: ONE rank
     with nrun=8 splits 4/4 across 2 real processes — the per-restart
     hard assignments all-gather, both hosts accumulate the identical
     consensus, and the measure table + winning factors reproduce the
@@ -172,7 +172,7 @@ def test_two_process_ml_restart_split_matches_single_host(tmp_path):
 
 
 def test_two_process_ml_factorize_matches_single_host(tmp_path):
-    """ML path multi-host (VERDICT r2 item 5): the (sample, rank)
+    """ML path multi-host: the (sample, rank)
     item grid partitions across 2 real processes; both hosts return
     measures and factors bit-identical to the single-process run."""
     ranks, nrun, itmax, seed = [2, 3, 4], 3, 120, 5

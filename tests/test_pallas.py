@@ -1,7 +1,8 @@
-"""Differential tests: Pallas fused kernels vs dense XLA path
-(the rebuild's analog of the reference's useC=TRUE/FALSE pair).
-Run in interpreter mode on the CPU test mesh; identical code compiles
-on TPU."""
+"""The fused X-pass GPU kernel (ops/pallas/xpass.py) against the
+float64 reference math, run in the Pallas interpreter on the CPU —
+the rebuild's analog of the reference's useC=TRUE/FALSE pair — plus
+the deferred-ELBO loop it plugs into.  The compiled kernel's own
+checks are the ``gpu``-marked tests (and chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -9,124 +10,204 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from ccfindr_tpu.ops import reference_impl as ref
 from ccfindr_tpu.ops import vb as vb_ops
-from ccfindr_tpu.ops.pallas import (suffstats_pallas, elbo_data_pallas,
-                                    pad_matrix)
+from ccfindr_tpu.ops.pallas import xpass as xk
+
+SHAPES = [(100, 300, 3), (257, 1000, 16), (64, 129, 20)]
+X_DTYPES = [np.int8, np.int16, np.float32]
+# f32: float32 accumulation over up to 1000 terms, no TF32;
+# bf16: operands rounded to 8 mantissa bits (relative 2^-9 each)
+TOL = {"f32": 2e-5, "bf16": 1e-2}
 
 
-def _problem(n, m, r, seed=0):
+def _problem(n, m, r, seed=0, x_dtype=np.float64, f_dtype=np.float32):
     rng = np.random.default_rng(seed)
-    x = rng.poisson(2.0, size=(n, m)).astype(np.float64)
-    lw = rng.gamma(1.0, 1.0, size=(n, r))
-    lh = rng.gamma(1.0, 1.0, size=(r, m))
-    return jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh)
+    x = rng.poisson(2.0, size=(n, m)).astype(x_dtype)
+    lw = rng.gamma(1.0, 1.0, size=(n, r)).astype(f_dtype)
+    lh = rng.gamma(1.0, 1.0, size=(r, m)).astype(f_dtype)
+    return x, lw, lh
 
 
-@pytest.mark.parametrize("shape", [(16, 24, 3), (32, 16, 5)])
-def test_suffstats_pallas_matches_dense(shape):
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("x_dtype", X_DTYPES,
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_xpass_matches_reference(shape, x_dtype, precision):
+    """swn, shn and sum x*log(wth) on ragged shapes, every X storage
+    dtype and both precisions, against the float64 oracle."""
     n, m, r = shape
-    x, lw, lh = _problem(n, m, r)
-    sw_d, sh_d = vb_ops.suffstats_dense(x, lw, lh)
-    sw_p, sh_p = suffstats_pallas(x, lw, lh, bn=8, bm=128)
-    np.testing.assert_allclose(np.asarray(sw_p), np.asarray(sw_d),
-                               rtol=1e-10)
-    np.testing.assert_allclose(np.asarray(sh_p), np.asarray(sh_d),
-                               rtol=1e-10)
+    x, lw, lh = _problem(n, m, r, seed=n + m, x_dtype=x_dtype)
+    swn, shn, xlog = xk.xpass(jnp.asarray(x), jnp.asarray(lw),
+                              jnp.asarray(lh), precision=precision,
+                              interpret=True)
+    assert swn.shape == (n, r) and shn.shape == (r, m)
+    want = ref.xpass_np(x, lw, lh, block_rows=64)
+    tol = TOL[precision]
+    assert _rel(swn, want[0]) < tol
+    assert _rel(shn, want[1]) < tol
+    assert abs(float(xlog) - want[2]) / abs(want[2]) < tol
 
 
-def test_suffstats_pallas_padding_invariance():
-    """Pre-padded X gives identical results (padding contract)."""
-    n, m, r = 20, 40, 4
-    x, lw, lh = _problem(n, m, r, seed=1)
-    sw1, sh1 = suffstats_pallas(x, lw, lh, bn=8, bm=128)
-    x_pad = pad_matrix(x, 8, 128)
-    sw2, sh2 = suffstats_pallas(x_pad, lw, lh, bn=8, bm=128)
-    np.testing.assert_allclose(np.asarray(sw1), np.asarray(sw2),
-                               rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(sh1), np.asarray(sh2),
-                               rtol=1e-12)
-
-
-def test_elbo_data_pallas_matches_dense():
-    n, m, r = 24, 48, 3
-    x, lw, lh = _problem(n, m, r, seed=2)
-    # lw/lh must be positive (clamped at fudge in the real sweep)
-    ref = vb_ops.elbo_data_term(x, lw, lh)
-    out = elbo_data_pallas(x, lw, lh, bn=8, bm=128)
-    np.testing.assert_allclose(float(out), float(ref), rtol=1e-10)
-
-
-def test_vb_sweep_with_pallas_backend_matches():
-    from ccfindr_tpu.ops.vb import Hyper, VBState
-
-    n, m, r = 16, 32, 3
-    x, lw, lh = _problem(n, m, r, seed=3)
-    hyper = Hyper(*(jnp.asarray(v) for v in (1.0, 1.0, 1.0, 1.0)))
-    st = VBState(ew=lw, eh=lh, lw=lw, lh=lh,
-                 dw=jnp.zeros_like(lw), dh=jnp.zeros_like(lh),
-                 lkh=jnp.asarray(-np.inf))
-    eps = np.finfo(np.float64).eps
-    lgx = jnp.sum(jax.scipy.special.gammaln(x + 1.0))
-
-    dense = vb_ops.vb_sweep(x, st, hyper, eps, lgx)
-
-    def ss(x_, lw_, lh_):
-        return suffstats_pallas(x_, lw_, lh_, bn=8, bm=128)
-
-    def dt(x_, lw_, lh_):
-        return elbo_data_pallas(x_, lw_, lh_, bn=8, bm=128)
-
-    fused = vb_ops.vb_sweep(x, st, hyper, eps, lgx,
-                            suffstats=ss, data_term=dt)
-    for f in ("ew", "eh", "lw", "lh"):
-        np.testing.assert_allclose(np.asarray(getattr(fused, f)),
-                                   np.asarray(getattr(dense, f)),
-                                   rtol=1e-9, err_msg=f)
-    np.testing.assert_allclose(float(fused.lkh), float(dense.lkh),
-                               rtol=1e-9)
-
-
-def test_fused_pallas_matches_twopass_kernels():
-    """The single-pass fused kernel returns exactly the 2-pass kernels'
-    outputs: swn/shn numerators + the ELBO data term."""
-    from ccfindr_tpu.ops.pallas import fused_pallas
-
-    n, m, r = 24, 40, 5
-    x, lw, lh = _problem(n, m, r, seed=4)
-    swn, shn, dterm = fused_pallas(x, lw, lh, bn=8, bm=128)
-    sw2, sh2 = suffstats_pallas(x, lw, lh, bn=8, bm=128)
-    d2 = elbo_data_pallas(x, lw, lh, bn=8, bm=128)
-    np.testing.assert_allclose(np.asarray(lw * swn), np.asarray(sw2),
-                               rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(lh * shn), np.asarray(sh2),
-                               rtol=1e-12)
-    np.testing.assert_allclose(float(dterm), float(d2), rtol=1e-12)
-
-
-def test_fused_pallas_matches_fused_dense():
-    from ccfindr_tpu.ops.pallas import fused_pallas
-
-    n, m, r = 16, 48, 3
-    x, lw, lh = _problem(n, m, r, seed=5)
-    swn_d, shn_d, dt_d = vb_ops.fused_dense(x, lw, lh)
-    swn_p, shn_p, dt_p = fused_pallas(x, lw, lh, bn=8, bm=128)
-    np.testing.assert_allclose(np.asarray(swn_p), np.asarray(swn_d),
-                               rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(shn_p), np.asarray(shn_d),
-                               rtol=1e-9)
-    np.testing.assert_allclose(float(dt_p), float(dt_d), rtol=1e-9)
-
-
-def test_fused_pallas_padding_invariance():
-    from ccfindr_tpu.ops.pallas import fused_pallas
-
-    n, m, r = 20, 40, 4
-    x, lw, lh = _problem(n, m, r, seed=6)
-    out1 = fused_pallas(x, lw, lh, bn=8, bm=128)
-    out2 = fused_pallas(pad_matrix(x, 8, 128), lw, lh, bn=8, bm=128)
-    for a, b in zip(out1, out2):
+def test_xpass_float64_matches_fused_dense():
+    """float64 factors (interpret mode only) agree with the XLA fused
+    backend to float64 roundoff, dterm fold included."""
+    x, lw, lh = _problem(40, 70, 5, seed=5, f_dtype=np.float64)
+    args = (jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh))
+    got = xk.VBXPass(interpret=True)(*args)
+    want = vb_ops.fused_dense(*args)
+    for a, b in zip(got, want):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-12)
+
+
+def test_xpass_padding_invariance():
+    """Pre-padded X (zeros beyond the true extent, any amount) gives
+    identical results — the driver pads X once per factorization."""
+    n, m, r = 20, 40, 4
+    x, lw, lh = _problem(n, m, r, seed=1, f_dtype=np.float64)
+    xj, lwj, lhj = jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh)
+    out1 = xk.xpass(xj, lwj, lhj, interpret=True)
+    for xp in (xk.pad_matrix(xj), jnp.pad(xj, ((0, 13), (0, 300)))):
+        out2 = xk.xpass(xp, lwj, lhj, interpret=True)
+        for a, b in zip(out1, out2):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-13)
+
+
+def test_xpass_vmapped_rank_masks():
+    """The batched rank sweep's shape: vmapped lanes padded to rmax,
+    the padded components pinned at fudge (as vb_run's rank mask
+    does), equal each lane's unpadded kernel call."""
+    n, m, rmax = 48, 200, 6
+    ranks = [2, 4, 6]
+    x, _, _ = _problem(n, m, 1, seed=2)
+    rng = np.random.default_rng(3)
+    fudge = np.finfo(np.float64).eps
+    lws, lhs = [], []
+    for r in ranks:
+        lw = np.full((n, rmax), fudge)
+        lh = np.full((rmax, m), fudge)
+        lw[:, :r] = rng.gamma(1.0, 1.0, (n, r))
+        lh[:r] = rng.gamma(1.0, 1.0, (r, m))
+        lws.append(lw)
+        lhs.append(lh)
+    xj = jnp.asarray(x)
+    outs = jax.vmap(lambda a, b: xk.xpass(xj, a, b, interpret=True))(
+        jnp.asarray(np.stack(lws)), jnp.asarray(np.stack(lhs)))
+    for lane, r in enumerate(ranks):
+        swn, shn, xlog = xk.xpass(xj, jnp.asarray(lws[lane][:, :r]),
+                                  jnp.asarray(lhs[lane][:r]),
+                                  interpret=True)
+        np.testing.assert_allclose(np.asarray(outs[0][lane][:, :r]),
+                                   np.asarray(swn), rtol=1e-12)
+        np.testing.assert_allclose(np.asarray(outs[1][lane][:r]),
+                                   np.asarray(shn), rtol=1e-12)
+        np.testing.assert_allclose(float(outs[2][lane]), float(xlog),
+                                   rtol=1e-12)
+
+
+def test_xpass_elbo_flag_and_output_subsets():
+    """do_elbo=0 skips the log term (xlog = 0) without touching the
+    suffstats; the ML phases' output subsets equal the full call."""
+    x, lw, lh = _problem(30, 50, 3, seed=4, f_dtype=np.float64)
+    args = (jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh))
+    full = xk.xpass(*args, interpret=True)
+    off = xk.xpass(*args, do_elbo=0.0, interpret=True)
+    on = xk.xpass(*args, do_elbo=1.0, interpret=True)
+    assert float(off[2]) == 0.0
+    assert float(on[2]) == float(full[2])
+    for a, b in zip(off[:2], full[:2]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    ml = xk.MLXPass(interpret=True)
+    hn, xlw = ml.h(*args)
+    np.testing.assert_array_equal(np.asarray(hn), np.asarray(full[1]))
+    assert float(xlw) == float(full[2])
+    np.testing.assert_array_equal(np.asarray(ml.w(*args)),
+                                  np.asarray(full[0]))
+
+
+def test_xpass_compensated_log_sum(monkeypatch):
+    """The log term accumulates in float32 across many gene tiles of
+    one block (one chunk): it must track the float64 sum at float32
+    roundoff level."""
+    monkeypatch.setattr(xk, "_MIN_BLOCKS", 1)   # one block, 256 tiles
+    n, m, r = 2048, 256, 4
+    rng = np.random.default_rng(0)
+    x = rng.poisson(20.0, size=(n, m)).astype(np.float32)
+    lw = rng.gamma(4.0, 1.0, size=(n, r)).astype(np.float32)
+    lh = rng.gamma(4.0, 1.0, size=(r, m)).astype(np.float32)
+    _, _, xlog = xk.xpass(jnp.asarray(x), jnp.asarray(lw),
+                          jnp.asarray(lh), want_swn=False,
+                          want_shn=False, interpret=True)
+    want = ref.xpass_np(x, lw, lh)[2]
+    assert abs(float(xlog) - want) / abs(want) < 3e-7
+
+
+@pytest.mark.parametrize("r,rp", [(1, 16), (3, 16), (16, 16), (17, 32),
+                                  (20, 32), (33, 64)])
+def test_rank_pad(r, rp):
+    """Ranks pad to a power of two, at least the tensor cores' 16."""
+    assert xk.rank_pad(r) == rp
+
+
+@pytest.mark.parametrize("n_tiles,n_ct,rp,want", [
+    (128, 128, 16, (32, 16)),     # 4096 x 8192, r=16
+    (640, 1568, 32, (28, 10)),    # the 20480 x 100352 atlas, r=20
+    (9, 2, 16, (2, 9)),           # too small to fill: one block a tile
+    (7, 40, 16, (40, 7)),         # prime gene-tile count
+])
+def test_grid(n_tiles, n_ct, rp, want):
+    """Groups and chunks divide the tile counts evenly (one static trip
+    count per block), give enough blocks to fill the card, and among
+    those keep the partial buffers smallest."""
+    g, c = xk._grid(n_tiles, n_ct, rp, xk.BN, xk.BM)
+    assert (g, c) == want
+    assert n_ct % g == 0 and n_tiles % c == 0
+    assert g * c >= min(xk._MIN_BLOCKS, n_ct * n_tiles)
+
+
+def test_xpass_refuses_other_platforms():
+    """Without interpret mode the kernel runs on a GPU only: on the CPU
+    it raises, naming the platform, and so does backend='pallas'."""
+    import ccfindr_tpu as cf
+
+    x, lw, lh = _problem(16, 20, 2, seed=6)
+    with pytest.raises(RuntimeError, match="'cpu'"):
+        xk.xpass(jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh))
+    sim = cf.simulate_whx(nrow=12, ncol=15, rank=2, seed=1)
+    for call in (cf.vb_factorize, cf.factorize):
+        with pytest.raises(RuntimeError, match="GPU"):
+            call(cf.SCSet(count=sim["x"]), ranks=[2], nrun=1,
+                 verbose=0, Itmax=5, backend="pallas")
+
+
+def test_xpass_refuses_float64_on_gpu(monkeypatch):
+    """float64 factors are an interpret-mode (test) feature: on the GPU
+    the wrapper raises instead of silently switching paths."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    x, lw, lh = _problem(16, 20, 2, seed=7, f_dtype=np.float64)
+    with pytest.raises(TypeError, match="float64"):
+        xk.xpass(jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lh))
+
+
+@pytest.mark.gpu
+def test_xpass_compiled_on_gpu(gpu):
+    """The compiled kernel at a real width (4096 x 8192, r=16, int8 X)
+    against the float64 oracle."""
+    n, m, r = 4096, 8192, 16
+    x, lw, lh = _problem(n, m, r, seed=8, x_dtype=np.int8)
+    swn, shn, xlog = xk.xpass(jnp.asarray(x), jnp.asarray(lw),
+                              jnp.asarray(lh))
+    want = ref.xpass_np(x, lw, lh)
+    assert _rel(swn, want[0]) < 1e-4
+    assert _rel(shn, want[1]) < 1e-4
+    assert abs(float(xlog) - want[2]) / abs(want[2]) < 1e-5
 
 
 def test_vb_run_fused_matches_eager_exactly():
@@ -189,166 +270,3 @@ def test_vb_run_fused_rank_and_cell_masks():
     assert float(eager.lml) == float(fused.lml)
     np.testing.assert_array_equal(np.asarray(eager.state.ew),
                                   np.asarray(fused.state.ew))
-
-
-# ---------------------------------------------------------------------
-# Pallas posterior epilogue (ops/pallas/epilogue.py)
-# ---------------------------------------------------------------------
-
-def test_posterior_update_pallas_matches_eager():
-    """The W/H epilogue kernels reproduce ops.vb.posterior_update on
-    padded arrays: factors, the U2/U3 ELBO partials, the dterm fold
-    partials, and the hyper-update mean numerators."""
-    from ccfindr_tpu.ops.pallas import epilogue as ep
-    from ccfindr_tpu.ops.pallas import vb_kernels as pk
-    from ccfindr_tpu.ops.vb import Hyper, VBState
-
-    n, m, r = 20, 27, 3
-    bn, bm = 8, 8
-    x, lw, lh = _problem(n, m, r, seed=3)
-    st = VBState(ew=lw, eh=lh, lw=lw, lh=lh, dw=jnp.zeros_like(lw),
-                 dh=jnp.zeros_like(lh),
-                 lkh=jnp.asarray(-jnp.inf, lw.dtype))
-    hyper = Hyper(*(jnp.asarray(v, lw.dtype)
-                    for v in (0.7, 1.3, 1.1, 0.9)))
-    fudge = jnp.asarray(np.finfo(np.float64).eps, lw.dtype)
-
-    # eager oracle
-    swn, shn, dterm = vb_ops.fused_dense(x, lw, lh)
-    new, pending = vb_ops.posterior_update(
-        lw * swn, lh * shn, st, hyper, fudge, jnp.asarray(0.0))
-
-    # pallas epilogue on padded arrays
-    xp = pk.pad_matrix(x, bn, bm)
-    np_, mp_ = xp.shape
-    rp_ = 8
-    lw_p, lh_p = pk._pad_factors(lw, lh, np_, mp_, rp_)
-    swn_p, shn_p, xlog = pk.fused_pallas_raw(xp, lw_p, lh_p,
-                                             bn=bn, bm=bm)
-    ehs = jnp.zeros((8, rp_), lw.dtype).at[0, :r].set(
-        jnp.sum(st.eh, axis=1))
-    out = ep.posterior_update_pallas(
-        swn_p, shn_p, lw_p, lh_p, ehs,
-        jnp.stack(list(hyper)), fudge, n=n, m=m, r=r, bn=bn, bm=bm)
-
-    for f in ["ew", "eh", "lw", "lh", "dw", "dh"]:
-        got = np.asarray(out[f])
-        got = got[:n, :r] if f in ("ew", "lw", "dw") else got[:r, :m]
-        np.testing.assert_allclose(got, np.asarray(getattr(new, f)),
-                                   rtol=1e-10, err_msg=f)
-    # ELBO partials: pending = u1 + u2 + u3 with u1 from csum/rsum
-    u1 = -float(jnp.dot(out["csum"][0], out["rsum"][0]))
-    aw, bw, ah, bh = (float(v) for v in hyper)
-    from scipy.special import gammaln as sgl
-    cw = n * r * (aw * np.log(aw / bw) - sgl(aw))
-    ch = r * m * (ah * np.log(ah / bh) - sgl(ah))
-    got_pending = u1 + float(out["u2"]) + cw + float(out["u3"]) + ch
-    np.testing.assert_allclose(got_pending, float(pending), rtol=1e-10)
-    # deferred-ELBO fold partials reproduce fold_dterm
-    from ccfindr_tpu.ops.pallas.vb_kernels import fold_dterm
-    want_fold = float(fold_dterm(swn_p[:n, :r], shn_p[:r, :m], lw, lh,
-                                 xlog))
-    got_fold = float(-(out["dterm_w"] + out["dterm_h"]) + xlog)
-    np.testing.assert_allclose(got_fold, want_fold, rtol=1e-10)
-    # hyper means
-    np.testing.assert_allclose(float(out["sum_ew"]) / (n * r),
-                               float(jnp.mean(new.ew)), rtol=1e-10)
-    np.testing.assert_allclose(float(out["sum_log_lw"]) / (n * r),
-                               float(jnp.mean(jnp.log(new.lw))),
-                               rtol=1e-10)
-    np.testing.assert_allclose(float(out["sum_eh"]) / (r * m),
-                               float(jnp.mean(new.eh)), rtol=1e-10)
-    np.testing.assert_allclose(float(out["sum_log_lh"]) / (r * m),
-                               float(jnp.mean(jnp.log(new.lh))),
-                               rtol=1e-10)
-
-
-def test_vb_run_epi_matches_eager_fused_loop():
-    """Full convergence loop with the Pallas posterior epilogue: same
-    n_iter, same recorded lml, same factors and hypers as the eager
-    fused loop (up to digamma_approx/gammaln_approx, < 1e-12 rel in
-    f64)."""
-    from ccfindr_tpu.ops.pallas import epilogue as ep
-    from ccfindr_tpu.ops.pallas import vb_kernels as pk
-    from ccfindr_tpu.ops.vb import Hyper, VBState
-
-    import ccfindr_tpu as cf
-
-    sim = cf.simulate_whx(nrow=24, ncol=36, rank=3, seed=7)
-    x = np.asarray(sim["x"], np.float64)
-    n, m = x.shape
-    r = 4
-    rng = np.random.default_rng(0)
-    w = jnp.asarray(rng.gamma(1.0, 1.0, (n, r)))
-    h = jnp.asarray(rng.gamma(1.0, 1.0, (r, m)))
-    st = VBState(ew=w, eh=h, lw=w, lh=h, dw=jnp.zeros_like(w),
-                 dh=jnp.zeros_like(h),
-                 lkh=jnp.asarray(-jnp.inf, jnp.float64))
-    hy = Hyper(*(jnp.asarray(v, jnp.float64) for v in (1.,) * 4))
-    xj = jnp.asarray(x)
-
-    ref = vb_ops.vb_run(xj, st, hy, itmax=200, tol=1e-5,
-                        fused=vb_ops.fused_dense)
-    bn, bm = 8, 8
-    xp = pk.pad_matrix(xj, bn, bm)
-    got = ep.vb_run_epi(xp, st, hy, itmax=200, tol=1e-5, bn=bn,
-                        bm=bm, m_true=m)
-    assert int(got.n_iter) == int(ref.n_iter)
-    np.testing.assert_allclose(float(got.lml), float(ref.lml),
-                               rtol=1e-9)
-    for f in ["ew", "eh", "lw", "lh", "dw", "dh"]:
-        np.testing.assert_allclose(np.asarray(getattr(got.state, f)),
-                                   np.asarray(getattr(ref.state, f)),
-                                   rtol=1e-7, err_msg=f)
-    for f in ["aw", "bw", "ah", "bh"]:
-        np.testing.assert_allclose(float(getattr(got.hyper, f)),
-                                   float(getattr(ref.hyper, f)),
-                                   rtol=1e-9)
-
-
-def test_vb_run_epi_vmapped_rank_masks():
-    """Batched rank sweep through the all-Pallas loop: vmapped
-    instances at ranks 3..5 padded to rmax with per-instance rank
-    masks reproduce the eager fused loop instance-for-instance."""
-    from ccfindr_tpu.ops.pallas import epilogue as ep
-    from ccfindr_tpu.ops.pallas import vb_kernels as pk
-    from ccfindr_tpu.ops.vb import Hyper, VBState
-
-    import ccfindr_tpu as cf
-
-    sim = cf.simulate_whx(nrow=24, ncol=36, rank=3, seed=7)
-    x = np.asarray(sim["x"], np.float64)
-    n, m = x.shape
-    rmax = 5
-    ranks = [3, 4, 5]
-    B = len(ranks)
-    rng = np.random.default_rng(0)
-    w = jnp.asarray(rng.gamma(1.0, 1.0, (B, n, rmax)))
-    h = jnp.asarray(rng.gamma(1.0, 1.0, (B, rmax, m)))
-    sts = VBState(ew=w, eh=h, lw=w, lh=h, dw=jnp.zeros_like(w),
-                  dh=jnp.zeros_like(h), lkh=jnp.full((B,), -jnp.inf))
-    hys = Hyper(*(jnp.ones((B,)) for _ in range(4)))
-    rmask = jnp.asarray((np.arange(rmax)[None, :]
-                         < np.asarray(ranks)[:, None]
-                         ).astype(np.float64))
-    rtrue = jnp.asarray(np.asarray(ranks, np.float64))
-    xj = jnp.asarray(x)
-
-    ref = jax.vmap(lambda st, hy, rm, rt: vb_ops.vb_run(
-        xj, st, hy, itmax=150, tol=1e-5, rank_mask=rm, r_true=rt,
-        fused=vb_ops.fused_dense))(sts, hys, rmask, rtrue)
-
-    bn, bm = 8, 8
-    xp = pk.pad_matrix(xj, bn, bm)
-    got = jax.vmap(lambda st, hy, rm, rt: ep.vb_run_epi(
-        xp, st, hy, itmax=150, tol=1e-5, bn=bn, bm=bm,
-        rank_mask=rm, r_true=rt, m_true=m))(sts, hys, rmask, rtrue)
-
-    np.testing.assert_array_equal(np.asarray(got.n_iter),
-                                  np.asarray(ref.n_iter))
-    np.testing.assert_allclose(np.asarray(got.lml),
-                               np.asarray(ref.lml), rtol=1e-9)
-    for f in ["ew", "eh", "lw", "lh", "dw", "dh"]:
-        np.testing.assert_allclose(np.asarray(getattr(got.state, f)),
-                                   np.asarray(getattr(ref.state, f)),
-                                   rtol=1e-6, err_msg=f)

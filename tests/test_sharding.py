@@ -105,7 +105,8 @@ def test_fused_sharded_matches_dense(mesh8):
     lh = jnp.asarray(rng.gamma(1.0, 1.0, (r, m)))
     ref = vb_ops.fused_dense(x, lw, lh)
 
-    fused = make_fused_sharded(mesh8, bn=8, bm=8)
+    from ccfindr_tpu.ops.pallas.xpass import VBXPass
+    fused = make_fused_sharded(mesh8, fused_local=VBXPass(interpret=True))
     xs = jax.device_put(x, NamedSharding(mesh8, P(None, "cells")))
     lhs = jax.device_put(lh, NamedSharding(mesh8, P(None, "cells")))
     out = jax.jit(fused)(xs, lw, lhs)
@@ -114,7 +115,7 @@ def test_fused_sharded_matches_dense(mesh8):
                                    rtol=1e-9, err_msg=name)
 
 
-def test_vb_factorize_mesh_pallas_backend(mesh8):
+def test_vb_factorize_mesh_pallas_backend(mesh8, pallas_interpret):
     """Driver mesh path with the sharded fused pallas backend: same
     science as the single-device fused run."""
     # planted rank 3 so both fitted ranks are well-posed (an overfit
@@ -141,12 +142,12 @@ def test_vb_factorize_mesh_pallas_backend(mesh8):
         assert concord > 0.97, (k, concord)
 
 
-def test_vb_factorize_gene_sharded_matches_single():
+def test_vb_factorize_gene_sharded_matches_single(pallas_interpret):
     """Gene-axis (TP) sharding: make_mesh(genes=2, cells=4) with X
     sharded P('genes','cells'), W row-sharded, shn/dterm psum'd over
     'genes' (the dual of the swn-over-'cells' psum) reproduces the
     single-device run — non-divisible gene count (row padding + mask)
-    included.  VERDICT r2 item 3 / SURVEY §2.3 TP row."""
+    included.  SURVEY §2.3 TP row."""
     sim = cf.simulate_whx(nrow=27, ncol=36, rank=3, seed=21)
     s = cf.SCSet(count=sim["x"])  # 27 rows: not divisible by genes=2
     kw = dict(ranks=[2, 3], nrun=2, verbose=0, Itmax=150, seed=4,
@@ -181,12 +182,11 @@ def test_vb_factorize_gene_and_cell_sharded_dense():
     np.testing.assert_allclose(got.basis[0], ref.basis[0], rtol=1e-6)
 
 
-def test_mesh_bf16_precision_runs():
-    """precision='bf16' on the cell-sharded mesh path (round-4: the
-    opt-in now reaches mesh users of the fused kernel, VERDICT r3
-    weakness 7): runs, and tracks the f32 mesh result loosely (on
-    the f64 CPU test mesh the bf16 operand cast is a real
-    truncation; on TPU the f32 GEMMs are already 1-pass bf16)."""
+def test_mesh_bf16_precision_runs(pallas_interpret):
+    """precision='bf16' on the cell-sharded mesh path (the opt-in
+    reaches mesh users of the fused kernel): runs, and tracks
+    the f32 mesh result loosely (on the f64 CPU test mesh the bf16
+    operand cast is a real truncation)."""
     import jax
     import numpy as np
 

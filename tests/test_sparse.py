@@ -97,7 +97,7 @@ def test_vb_factorize_sparse_backend():
                                rtol=1e-8)
 
 
-def test_vb_factorize_pallas_backend():
+def test_vb_factorize_pallas_backend(pallas_interpret):
     sim = cf.simulate_whx(nrow=25, ncol=40, rank=3, seed=6)
     s = cf.SCSet(count=sim["x"])
     a = cf.vb_factorize(s, ranks=3, nrun=2, verbose=0, Itmax=300,
@@ -138,8 +138,8 @@ def test_fused_coo_matches_twopass():
 
 def test_vb_factorize_sparse_never_densifies(monkeypatch):
     """backend='sparse' must not materialize a dense X anywhere in the
-    driver (VERDICT r1: the 20k x 1M atlas must not allocate 80 GB on
-    the host before the sparse path starts)."""
+    driver (a 20k x 1M atlas must not allocate 80 GB on the host
+    before the sparse path starts)."""
     sim = cf.simulate_whx(nrow=25, ncol=40, rank=3, seed=21)
     s = cf.SCSet(count=sp.csr_matrix(sim["x"]))
 
